@@ -2,7 +2,7 @@
 
 This is the framework's correctness arbiter (the role the reference's host
 codec plays — ``snappy_compress.c:455-485`` / ``snappy_decompress.c:218-289``).
-It is intentionally simple and sequential; the TPU kernels and the C++ native
+It is intentionally simple and sequential; the device kernels and the C++ native
 codec are both validated against it, and it is itself validated bit-for-bit
 against the corpus shipped with the reference (``test/*.snappy``).
 
@@ -10,7 +10,7 @@ The compressor reproduces the reference's exact emit rules and heuristics
 (multiplicative hash 0x1e35a7bd with a 256..2^14-entry table, ``skip++ >> 5``
 probe skipping, 15-byte trailing-literal margin, 68/64/60 copy chunking —
 reference ``snappy_compress.c:284-413``) so its output is byte-identical to
-the reference compressor's. The TPU encoder is free to use a different match
+the reference compressor's. The device encoder is free to use a different match
 finder (precedent: the reference's DPU kernel uses a different hash,
 ``dpu-compress/dpu_compress.c:202-212``); only decoder semantics are the
 format contract.

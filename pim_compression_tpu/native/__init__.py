@@ -178,7 +178,7 @@ def blockize_compressed(
 ) -> None:
     """Fill the padded ``comp[num_blocks_padded, cap]`` slot matrix with the
     framed payloads — one parallel memcpy per block (the host pre-phase of
-    the TPU decode path). Bytes of ``comp`` below ``dirty_bytes`` that no
+    the device decode path). Bytes of ``comp`` below ``dirty_bytes`` that no
     payload covers are zeroed; pass 0 for a freshly zeroed buffer."""
     lib = _load()
     if lib is None:
@@ -227,7 +227,7 @@ def assemble_compressed(
     num_threads: int = 0,
 ) -> bytearray:
     """Header + per-block u32 frames + payload compaction — one parallel
-    memcpy per block (the host post-phase of the TPU encode path; the
+    memcpy per block (the host post-phase of the device encode path; the
     ordered-fwrite analog, ``snappy_compress.c:697-703``).
 
     Returns a ``bytearray`` the C layer filled IN PLACE (the stream is
@@ -267,7 +267,7 @@ def assemble_compressed(
 
 
 def scan_frames(stream: bytes) -> dict:
-    """Native-speed frame scan (host pre-pass for the TPU decode path).
+    """Native-speed frame scan (host pre-pass for the device decode path).
 
     Returns dict with total_len, block_size, and per-block numpy arrays:
     payload_off, payload_size, out_off, out_size.

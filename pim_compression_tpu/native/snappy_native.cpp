@@ -49,7 +49,7 @@ inline int64_t MaxCompressedLength(int64_t n) { return 32 + n + n / 6; }
 
 inline uint32_t Load32(const uint8_t* p) {
   uint32_t v;
-  std::memcpy(&v, p, 4);  // little-endian hosts only (x86/ARM/TPU hosts)
+  std::memcpy(&v, p, 4);  // little-endian hosts only (x86/ARM hosts)
   return v;
 }
 
@@ -418,7 +418,7 @@ int64_t stpu_peek_header(const uint8_t* in, int64_t n, uint32_t* total_len,
   return stpu::kOk;
 }
 
-// Host pre-pass for the TPU decode path: walks frames and emits, per block,
+// Host pre-pass for the device decode path: walks frames and emits, per block,
 // the payload offset/size and output offset/size. Arrays must hold
 // max_frames entries. Returns the block count.
 int64_t stpu_scan_frames(const uint8_t* in, int64_t n, int64_t* payload_off,
@@ -439,7 +439,7 @@ int64_t stpu_scan_frames(const uint8_t* in, int64_t n, int64_t* payload_off,
   return static_cast<int64_t>(frames.size());
 }
 
-// Pack framed payloads into padded [num_blocks, cap] row slots — the TPU
+// Pack framed payloads into padded [num_blocks, cap] row slots — the device
 // decode path's host pre-phase (the NumPy ragged gather in
 // runtime/pipeline.py touched every payload byte through fancy indexing;
 // this is one memcpy per block, fanned out like the codec itself). Rows

@@ -1,3 +1,3 @@
-"""Device compute kernels (XLA/Pallas): block decode and encode."""
+"""Device compute kernels (XLA): block decode and encode."""
 
 from pim_compression_tpu.ops import decode, encode, primitives  # noqa: F401

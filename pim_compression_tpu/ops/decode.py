@@ -1,9 +1,9 @@
-"""Fully data-parallel block decoder (pure XLA, TPU-first).
+"""Fully data-parallel block decoder (pure XLA).
 
 The reference decodes each block with a byte-serial tag-dispatch loop
 (host: ``snappy_decompress.c:218-289``; DPU: ``dpu-decompress/
-dpu_decompress.c:224-299``). A serial loop is the worst possible shape for a
-TPU, so this decoder is a redesign, not a translation — every stage is a
+dpu_decompress.c:224-299``). A serial loop leaves a vector machine idle, so
+this decoder is a redesign, not a translation — every stage is a
 fixed-depth batch of vector ops:
 
 1. **Speculative tag decode** — decode a tag at *every* byte position of the

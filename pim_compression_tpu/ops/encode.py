@@ -39,7 +39,7 @@ from pim_compression_tpu.format import constants as C
 from pim_compression_tpu.ops import primitives as P
 from pim_compression_tpu.ops.decode import padded_capacity  # noqa: F401  (shared capacity model)
 
-_INF = jnp.int32(1 << 30)
+_INF = 1 << 30
 
 
 def _previous_occurrences(
@@ -49,9 +49,8 @@ def _previous_occurrences(
 
     Stable sort by gram keeps positions ascending within equal grams, so
     the k-th in-sort predecessor with an equal key is exactly the k-th most
-    recent previous occurrence. One sort serves every k (the pallas sorted
-    matcher's prev-ladder, pallas_match.packed_prev_lags, in plain XLA —
-    exact 32-bit keys, any block size: no 15-bit position-packing limit).
+    recent previous occurrence. One sort serves every k (exact 32-bit
+    keys, any block size).
     """
     n = gram.shape[0]
     pos = jnp.arange(n, dtype=jnp.int32)
@@ -128,8 +127,7 @@ def _encode_one_block(
         # cheap sel_cap-byte probe; the nearest longest-probing candidate
         # wins and resumes its extension from the probed prefix. The k-th
         # most recent occurrence often matches far longer than the nearest
-        # (xml @64K: 0.7715 at k=2 vs 0.7090 at k=1) — the same ladder the
-        # pallas sorted matcher folds (pallas_match.packed_prev_lags).
+        # (xml @64K: 0.7715 at k=2 vs 0.7090 at k=1).
         probes = [
             _match_lengths(d32, c, n, block_size, cap=sel_cap)
             for c in cands
@@ -146,7 +144,7 @@ def _encode_one_block(
         )
     ml = jnp.where(ml >= C.MIN_MATCH_LEN, ml, 0)
     # Lazy-1 matching: defer a copy when the next position matches longer
-    # (elementwise pre-transform; see lane_model_encode.lazy_defer).
+    # (an elementwise pre-transform of the match lengths).
     nxt_ml = jnp.concatenate([ml[1:], jnp.zeros((1,), ml.dtype)])
     ml = jnp.where(nxt_ml > ml, 0, ml)
 

@@ -2,7 +2,7 @@
 
 Everything here is pure XLA (gathers, cumsums, selects — no scatter in the
 hot paths and no data-dependent Python control flow), so the same code runs
-on TPU, on the CPU test mesh, and inside Pallas kernels.
+on the GPU and on the CPU test mesh alike.
 
 The key primitive family is *pointer doubling* over a functional successor
 ``next: [0, n] -> [0, n]``. The reference resolves both its tag chains and

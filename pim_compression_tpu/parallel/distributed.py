@@ -1,5 +1,5 @@
 """Multi-host orchestration (SURVEY.md §5.8: the reference is single-host —
-one process drives all DPU ranks; the TPU framework scales across hosts with
+one process drives all DPU ranks; this framework scales across hosts with
 ``jax.distributed``).
 
 Design: the file's block axis is split into contiguous per-process ranges
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import os
 import pathlib
+import subprocess
 
 import numpy as np
 import jax
@@ -31,10 +32,57 @@ from pim_compression_tpu.runtime.profiling import PhaseTimer
 from pim_compression_tpu.utils.config import CodecConfig
 
 
-def maybe_initialize() -> None:
-    """Initialize jax.distributed from standard env vars when present."""
-    if int(os.environ.get("PIM_NUM_PROCESSES", "1")) > 1 and jax.process_count() == 1:
-        jax.distributed.initialize()
+def _count_gpus() -> int:
+    """Cards on this host, counted without starting a JAX backend (which
+    must not start before ``jax.distributed.initialize``)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "-L"], capture_output=True, text=True, check=True
+        ).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return 0
+    return sum(line.startswith("GPU ") for line in out.splitlines())
+
+
+def local_device_ids(local_rank: int, num_gpus: int) -> list[int] | None:
+    """The one card a process drives: the card numbered by its local rank.
+
+    None on a host without cards (each process keeps its CPU backend).
+    Without this every process would reserve memory on every card of the
+    host, so a rank with no card of its own fails here, loudly."""
+    if num_gpus == 0:
+        return None
+    if not 0 <= local_rank < num_gpus:
+        raise RuntimeError(
+            f"local rank {local_rank} has no card of its own: this host has "
+            f"{num_gpus}; run at most one process per card"
+        )
+    return [local_rank]
+
+
+def maybe_initialize(num_gpus: int | None = None) -> bool:
+    """Join a multi-process job when ``PIM_NUM_PROCESSES`` > 1.
+
+    The job is described by ``PIM_NUM_PROCESSES``, ``PIM_PROCESS_ID``,
+    ``PIM_COORDINATOR`` (``host:port`` of process 0) and ``PIM_LOCAL_RANK``
+    (this process's index on its host; defaults to ``PIM_PROCESS_ID``,
+    i.e. one host). Call before any other JAX work. Returns whether it
+    initialized.
+    """
+    nproc = int(os.environ.get("PIM_NUM_PROCESSES", "1"))
+    if nproc <= 1 or jax.distributed.is_initialized():
+        return False
+    pid = int(os.environ["PIM_PROCESS_ID"])
+    local_rank = int(os.environ.get("PIM_LOCAL_RANK", pid))
+    jax.distributed.initialize(
+        coordinator_address=os.environ["PIM_COORDINATOR"],
+        num_processes=nproc,
+        process_id=pid,
+        local_device_ids=local_device_ids(
+            local_rank, _count_gpus() if num_gpus is None else num_gpus
+        ),
+    )
+    return True
 
 
 def process_block_range(num_blocks: int) -> tuple[int, int]:
@@ -129,8 +177,8 @@ def _walk_frame_table(stream_path: pathlib.Path) -> dict:
 
     Per-process memory stays O(#frames), never O(file): each frame header
     encodes the payload size, so the walk seeks payload bytes instead of
-    reading them (VERDICT r1 item 10 — the whole-stream read defeated range
-    ownership on the large tier). Mirrors the native scanner's traversal
+    reading them (a whole-stream read would defeat range ownership on large
+    files). Mirrors the native scanner's traversal
     (``snappy_native.cpp`` ScanFrames) including the trailing-frame rule.
     """
     from pim_compression_tpu.format.varint import read_varint32_stream

@@ -1,7 +1,7 @@
 """Device mesh + sharding for the block axis.
 
 The reference's two-level decomposition (blocks -> DPUs -> tasklets,
-``snappy_compress.c:494-520``) collapses on TPU to a 1-D data-parallel mesh
+``snappy_compress.c:494-520``) collapses to a 1-D data-parallel device mesh
 over the block axis: blocks are independent by format design, so XLA
 partitions the vmapped kernels with zero communication. Topology is a
 runtime property (``jax.devices()``), not a compile-time constant like the
@@ -10,7 +10,7 @@ reference's ``NR_DPUS``/``NR_TASKLETS`` (``Makefile:10-12``).
 Multi-host: under ``jax.distributed``, each process feeds its local shard of
 the block axis (``jax.make_array_from_process_local_data``); the only
 cross-host data movement in the whole codec is the host-side concatenation
-of per-host output segments — the TPU-native analog of the reference's
+of per-host output segments — the device-mesh analog of the reference's
 ordered per-DPU fwrite (``snappy_compress.c:697-703``).
 """
 

@@ -71,10 +71,10 @@ def blockize_compressed(
 
     ``zero_pad=False`` skips zeroing slot bytes past each payload when the
     pooled staging buffer is reused (stale bytes from the previous call may
-    remain there). Both decode engines mask every read at positions >=
-    comp_len (pallas DFA ``active`` gate; xla ``elem_valid``/``nxt``
-    clamps), so the decode path opts out — at ~8.5 KB payloads in ~39 KB
-    slots the pad memset would dominate the copy 4:1.
+    remain there). The decoder masks every read at positions >= comp_len
+    (``elem_valid``/``nxt`` clamps), so the decode path opts out — at
+    ~8.5 KB payloads in ~39 KB slots the pad memset would dominate the
+    copy 4:1.
     """
     from pim_compression_tpu import native
 
@@ -86,8 +86,8 @@ def blockize_compressed(
     if nb and native.available():
         # One parallel memcpy per block (C++) into the pooled staging
         # matrix, ~aggregate-memory-bandwidth speed — the host pre-phase
-        # must outrun the device kernels (VERDICT r2 weak #6: the
-        # fancy-indexed gather below was the Amdahl term).
+        # must outrun the device kernels (the fancy-indexed gather below
+        # was the Amdahl term).
         comp, dirty = _staging_matrix("decode_comp", num_blocks_padded, cap)
         native.blockize_compressed(
             stream, info["payload_off"], info["payload_size"], comp,
@@ -165,7 +165,7 @@ def triage_incompressible(blocks: np.ndarray, lens: np.ndarray) -> np.ndarray:
         # Sampled 4-grams from strided VIEWS of the uint8 block matrix —
         # only the sampled columns are cast/materialized (the full
         # [nb, bs-3] gram matrix was ~340 MB of traffic at the 84 MB
-        # tier; VERDICT r4 weak #6).
+        # tier).
         g = blocks[:, start:stop:step].astype(np.uint32)
         for b in (1, 2, 3):
             g |= blocks[:, start + b : stop + b : step].astype(np.uint32) << (

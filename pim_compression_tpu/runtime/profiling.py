@@ -2,7 +2,7 @@
 
 Reproduces the reference's runtime breakdown (``dpu_snappy.h:47-55``:
 pre / alloc / load / copy_in / run / copy_out / free, printed at
-``dpu_snappy.c:221-227`` and parsed by its benchmark scripts) in TPU terms:
+``dpu_snappy.c:221-227`` and parsed by its benchmark scripts) in device terms:
 ``pre`` (host scan/blockize) / ``h2d`` / ``kernel`` / ``d2h`` / ``post``
 (assembly), plus ``compile`` reported separately. Emits both the
 human-readable lines the reference's log parsers expect *and* structured

@@ -2,7 +2,7 @@
 """Stacked runtime-breakdown chart (role of asplos21/chart_breakdown.py).
 
 Reads the sweep CSV from run_benchmarks.py and renders per-phase stacked
-bars (pre / h2d / kernel / d2h / post) per file+engine, the TPU translation
+bars (pre / h2d / kernel / d2h / post) per file+engine, the device translation
 of the reference's Setup/CopyIn/Run/CopyOut taxonomy.
 """
 

@@ -27,18 +27,9 @@ def main() -> int:
         if r["direction"] == "compress"
         and (args.engine is None or r["engine"] == args.engine)
     ]
-    matchers = {r.get("matcher", "") for r in rows}
-    prev_ks = {r.get("prev_k", "") for r in rows}
-    sel_caps = {r.get("sel_cap", "") for r in rows}
     series: dict[str, list[tuple[int, float]]] = defaultdict(list)
     for r in rows:
         key = f"{r['file']}/{r['engine']}"
-        if len(matchers) > 1 and r["engine"] == "pallas":
-            key += f"/{r.get('matcher', '')}"  # matcher ladder axis
-        if len(prev_ks) > 1 and r["engine"] == "pallas":
-            key += f"/k{r.get('prev_k', 1)}"  # lag-composition depth axis
-        if len(sel_caps) > 1 and r["engine"] == "pallas" and r.get("sel_cap"):
-            key += f"/sel{r['sel_cap']}"  # select-then-extend cap axis
         series[key].append((int(r["block_size"]), float(r["ratio"])))
 
     fig, ax = plt.subplots(figsize=(7, 4.5))

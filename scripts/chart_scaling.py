@@ -4,7 +4,7 @@ and chart_tasklet_speedup.py).
 
 The reference sweeps NR_DPUS x NR_TASKLETS ({16..128} x {4..24},
 scripts/asplos21/dpu_tasklet_tradeoff.py:10-11) and charts speedup per
-shape; the TPU analog's one topology axis is the 1-D block-mesh size.
+shape; the device analog's one topology axis is the 1-D block-mesh size.
 Feed this a run_benchmarks.py CSV produced with --mesh-sizes 1,2,4,8:
 plots per-direction throughput normalized to the 1-device point, plus the
 ideal-linear guide line.

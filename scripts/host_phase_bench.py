@@ -1,14 +1,13 @@
 #!/usr/bin/env python3
-"""Host pre/post phase throughput (VERDICT r2 weak #6 / next-round item 4).
+"""Host pre/post phase throughput.
 
-At the projected silicon decode rate (~4.5 GB/s per chip, docs/perf_ledger
-.json) the host-side blockize/assembly became the Amdahl term when it ran
-as single-thread NumPy fancy indexing. This bench measures the native
-(C++ ParallelFor memcpy) host phases in steady state — pooled, page-warm
-staging, exactly how the runtime drives them — so the end-to-end decode
-story stays kernel-bound.
+The host-side blockize/assembly must outrun the device kernels, or it
+becomes the Amdahl term (it did when it ran as single-thread NumPy fancy
+indexing). This bench measures the native (C++ ParallelFor memcpy) host
+phases in steady state — pooled, page-warm staging, exactly how the
+runtime drives them — on seeded XML-like data.
 
-    python scripts/host_phase_bench.py [--mb 32] [--out docs/sample_results/host_phases.json]
+    python scripts/host_phase_bench.py [--mb 32] [--out bench_out/host_phases.json]
 """
 
 from __future__ import annotations
@@ -30,21 +29,15 @@ def main() -> int:
     ap.add_argument("--mb", type=int, default=32)
     ap.add_argument("--reps", type=int, default=8)
     ap.add_argument(
-        "--out", default="docs/sample_results/host_phases.json"
+        "--out", default="bench_out/host_phases.json"
     )
     args = ap.parse_args()
 
     from pim_compression_tpu import native
     from pim_compression_tpu.runtime import pipeline
+    from pim_compression_tpu.utils import corpus
 
-    seed = native.decompress(
-        (REPO.parent / "reference/test/xml.snappy").read_bytes()
-        if (REPO.parent / "reference/test/xml.snappy").exists()
-        else pathlib.Path("/root/reference/test/xml.snappy").read_bytes()
-    )
-    plain = (seed * (args.mb * 1_000_000 // len(seed) + 1))[
-        : args.mb * 1_000_000
-    ]
+    plain = corpus.xml_like(args.mb * 1_000_000, seed=0)
     stream = native.compress(plain)
     info = native.scan_frames(stream)
     nb = len(info["payload_off"])
@@ -56,7 +49,7 @@ def main() -> int:
 
     cases = [
         # decode pre: framed payloads -> padded slots (zero_pad=False is
-        # the runtime's configuration — both decode engines mask >= comp_len)
+        # the runtime's configuration — the decoder masks >= comp_len)
         ("decode_pre_blockize", len(stream),
          lambda: pipeline.blockize_compressed(stream, info, pad, zero_pad=False)),
         # encode post: padded payloads -> framed stream

@@ -3,25 +3,24 @@
 
 The reference rebuilds its binaries per (NR_DPUS, NR_TASKLETS) point and
 sweeps the corpus; topology here is a runtime property, so the sweep axes
-are engines x block sizes x corpus files. Results land in a CSV consumed by
+are engines x block sizes x corpus files (the seeded corpus of
+``pim_compression_tpu.utils.corpus``). Results land in a CSV consumed by
 the chart scripts.
 
 Sweep axes (each optional, comma-separated):
-  --engines       native,xla,pallas,oracle
+  --engines       native,xla,oracle
   --block-sizes   4096,32768
-  --matchers      sorted,sweep           (pallas encoder match finder)
   --mesh-sizes    1,2,4,8                (devices in the block mesh — the
                                           NR_DPUS axis analog; sweepable on
                                           the 8-device CPU mesh)
-  --synth-sizes   10,25,84               (MB; synthesizes the stripped
-                                          large-corpus tier from the shipped
-                                          texts, reference/README.md:8-19,
-                                          for the speedup-vs-filesize chart)
+  --synth-sizes   10,25,84               (MB; synthesizes the reference's
+                                          large-corpus tier,
+                                          reference/README.md:8-19, for the
+                                          speedup-vs-filesize chart)
 
 Usage:
     python scripts/run_benchmarks.py [--engines native,xla] [--files xml]
-        [--block-sizes 4096,32768] [--iters 3] [--window 512]
-        [--coarse-window 0] [--out results.csv]
+        [--block-sizes 4096,32768] [--iters 3] [--out results.csv]
 """
 
 from __future__ import annotations
@@ -35,24 +34,6 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-CORPUS = pathlib.Path("/root/reference/test")
-
-
-def discover_files(names: list[str] | None) -> list[tuple[str, bytes]]:
-    out = []
-    for snappy in sorted(CORPUS.glob("*.snappy")):
-        name = snappy.stem
-        if names and name not in names:
-            continue
-        txt = CORPUS / f"{name}.txt"
-        if txt.exists():
-            out.append((name, txt.read_bytes()))
-        else:  # xml ships compressed-only; recover the plain text
-            from pim_compression_tpu.format import oracle
-
-            out.append((name, oracle.decompress(snappy.read_bytes())))
-    return out
-
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -61,29 +42,7 @@ def main() -> int:
     ap.add_argument("--block-sizes", default="32768")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--threads", type=int, default=0)
-    ap.add_argument("--window", type=int, default=512)
-    ap.add_argument("--coarse-window", type=int, default=0)
-    ap.add_argument("--coarse-mode", default="sampled")
-    ap.add_argument("--matchers", default="sorted")
-    ap.add_argument("--rungs", default=None, help="e.g. 4,16,64 (sorted)")
-    ap.add_argument(
-        "--prev-ks", default="1",
-        help="comma-separated prev_k sweep values, e.g. 1,2,4 (sorted)",
-    )
-    ap.add_argument(
-        "--stride2-min", type=int, choices=[0, 8, 16, 32, 64], default=0,
-        help="half-density sort threshold for long rungs (sorted matcher)",
-    )
-    ap.add_argument(
-        "--sel-caps", default="0",
-        help="comma-separated select-then-extend caps in bytes, e.g. 0,16 "
-        "(sorted matcher; 0 = every prev candidate fully extended)",
-    )
-    ap.add_argument(
-        "--sel-all", action="store_true",
-        help="fused select-then-extend across ALL candidate arrays (the "
-        "round-3 kernel; requires --sel-caps > 0)",
-    )
+    ap.add_argument("--seed", type=int, default=0, help="corpus seed")
     ap.add_argument("--mesh-sizes", default="")
     ap.add_argument(
         "--synth-sizes", default="",
@@ -94,52 +53,32 @@ def main() -> int:
 
     from pim_compression_tpu import runtime
     from pim_compression_tpu.runtime.profiling import PHASES, PhaseTimer
+    from pim_compression_tpu.utils import corpus
     from pim_compression_tpu.utils.config import CodecConfig
 
     engines = args.engines.split(",")
     block_sizes = [int(b) for b in args.block_sizes.split(",")]
-    matchers = args.matchers.split(",")
-    prev_ks = [int(k) for k in args.prev_ks.split(",")]
-    sel_caps = [int(c) for c in args.sel_caps.split(",")]
     mesh_sizes = (
         [int(m) for m in args.mesh_sizes.split(",")] if args.mesh_sizes else [None]
     )
-    files = discover_files(args.files.split(",") if args.files else None)
-    if args.synth_sizes:
-        # Synthesize the reference's stripped large-corpus tier (dickens
-        # 10 MB .. spamfile 84 MB, reference/README.md:8-19) by cycling the
-        # shipped texts to the target size.
-        seed = b"".join(p for _, p in files) or b"synthetic tier\n" * 64
-        for mb in (int(s) for s in args.synth_sizes.split(",")):
-            n = mb * 1_000_000
-            body = (seed * (n // len(seed) + 1))[:n]
-            files.append((f"synth{mb}mb", body))
+    names = args.files.split(",") if args.files else corpus.NAMES
+    files = [(name, corpus.generate(name, args.seed)) for name in names]
+    # The reference's large-corpus tier (dickens 10 MB .. spamfile 84 MB,
+    # reference/README.md:8-19), as seeded text of the requested sizes.
+    for mb in (int(s) for s in args.synth_sizes.split(",") if s):
+        files.append(
+            (f"synth{mb}mb", corpus.text_like(mb * 1_000_000, args.seed))
+        )
 
     rows = []
     for name, plain in files:
         for engine in engines:
-            for bs, matcher, meshn, pk, sc in (
-                (b, m, d, k, c)
-                for b in block_sizes
-                for m in matchers
-                for d in mesh_sizes
-                for k in prev_ks
-                for c in sel_caps
+            for bs, meshn in (
+                (b, d) for b in block_sizes for d in mesh_sizes
             ):
                 cfg = CodecConfig(
                     block_size=bs, engine=engine, num_threads=args.threads,
-                    match_window=args.window, coarse_window=args.coarse_window,
-                    coarse_mode=args.coarse_mode, matcher=matcher,
                     mesh_devices=meshn,
-                    rungs=(
-                        tuple(int(r) for r in args.rungs.split(","))
-                        if args.rungs
-                        else None
-                    ),
-                    prev_k=pk,
-                    stride2_min=args.stride2_min,
-                    sel_cap=sc,
-                    sel_all=args.sel_all,
                 )
                 # Warm-up (compile) round
                 stream = runtime.compress(plain, cfg)
@@ -159,10 +98,6 @@ def main() -> int:
                         "file": name,
                         "engine": engine,
                         "block_size": bs,
-                        "matcher": matcher,
-                        "prev_k": pk,
-                        "sel_cap": sc,
-                        "sel_all": int(args.sel_all),
                         "mesh_devices": meshn if meshn else "",
                         "direction": direction,
                         "bytes": len(plain),
@@ -176,7 +111,7 @@ def main() -> int:
                     rows.append(row)
                     print(
                         f"{name:10s} {engine:7s} bs={bs:<6d} "
-                        f"{matcher:6s} k={pk} mesh={meshn or 'all':4} "
+                        f"mesh={meshn or 'all':4} "
                         f"{direction:10s} "
                         f"{row['gbps']:.3f} GB/s ratio={row['ratio']:.3f}"
                     )

@@ -2,11 +2,11 @@
 
 Launched N times by tests/test_distributed.py (and usable standalone) with a
 local jax.distributed coordinator — no monkeypatching anywhere: every
-process runs ``jax.distributed.initialize`` and the production
-``compress_to_file`` / ``decompress_to_file`` cooperatively, the process-level
-reality check VERDICT r1 demanded. The reference analog is the host driver's
-DPU-rank fan-out (snappy_compress.c:553-618); here each rank is an OS
-process owning a contiguous block range.
+process joins the job through ``distributed.maybe_initialize`` and runs the
+production ``compress_to_file`` / ``decompress_to_file`` cooperatively. The
+reference analog is the host driver's DPU-rank fan-out
+(snappy_compress.c:553-618); here each rank is an OS process owning a
+contiguous block range.
 
 Usage:
     python multiproc_worker.py <pid> <nproc> <port> <src> <out> <dec> \
@@ -30,19 +30,23 @@ def main() -> int:
     block_size, engine = int(sys.argv[7]), sys.argv[8]
     num_threads = int(sys.argv[9]) if len(sys.argv) > 9 else 0
 
+    import os
+
     import jax
 
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    jax.distributed.initialize(
-        coordinator_address=f"localhost:{port}",
-        num_processes=nproc,
-        process_id=pid,
+    os.environ.update(
+        PIM_NUM_PROCESSES=str(nproc),
+        PIM_PROCESS_ID=str(pid),
+        PIM_COORDINATOR=f"localhost:{port}",
     )
+    from pim_compression_tpu.parallel import distributed
+
+    assert distributed.maybe_initialize()
     assert jax.process_count() == nproc, "distributed init did not take"
 
     from jax.experimental import multihost_utils
 
-    from pim_compression_tpu.parallel import distributed
     from pim_compression_tpu.runtime.profiling import PhaseTimer
     from pim_compression_tpu.utils.config import CodecConfig
 

@@ -1,12 +1,11 @@
 """CLI tests: flag compatibility, stdout contract, error paths."""
 
+import os
 import pathlib
 import subprocess
 import sys
 
 import pytest
-
-from conftest import CORPUS_DIR
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -21,7 +20,7 @@ def run_cli(*args, cwd):
             "PATH": "/usr/bin:/bin",
             "PYTHONPATH": str(REPO),
             "JAX_PLATFORMS": "cpu",
-            "HOME": "/root",
+            "HOME": os.environ.get("HOME", ""),
         },
     )
 
@@ -91,39 +90,23 @@ def test_cli_corrupt_stream(tmp_cwd):
     assert "error" in r.stderr
 
 
-def test_preset_operating_points_valid():
-    # Every preset x block size resolves to a valid CodecConfig, and the
-    # CLI maps --preset to the table (explicit flags still override).
-    from pim_compression_tpu.utils.config import (
-        CodecConfig, OPERATING_POINTS, preset_overrides,
-    )
-
-    for preset, table in OPERATING_POINTS.items():
-        for bs in (*table, 24576, 256):
-            kw = preset_overrides(preset, bs)
-            cfg = CodecConfig(block_size=bs, engine="pallas", **kw)
-            if bs == 65536:
-                # the wide emit path needs the fused select ladder
-                assert cfg.sel_all and cfg.sel_cap
-            else:
-                assert cfg.effective_rung_pick
-    # speed trades reach/span for iterations, ratio keeps full reach
-    assert OPERATING_POINTS["ratio"][32768]["max_lag"] == 0
-    assert (
-        OPERATING_POINTS["speed"][32768]["max_lag"]
-        <= OPERATING_POINTS["balanced"][32768]["max_lag"]
-    )
-
-
-def test_cli_preset_flag_overrides(tmp_path):
-    # --preset sets knobs; an explicit knob flag wins over the preset.
+def test_cli_d_selects_xla_engine(tmp_path, capsys):
+    # -d is the reference's "use the device" flag; it maps to the xla
+    # engine, in-process (both directions).
     import pim_compression_tpu.cli as cli
 
     src = tmp_path / "in.txt"
-    src.write_bytes(b"preset override check " * 200)
-    out = tmp_path / "out.snappy"
-    rc = cli.main(
-        ["-c", "--engine", "oracle", "--preset", "speed",
-         "--max-lag", "1024", "-i", str(src), "-o", str(out)]
-    )
-    assert rc == 0 and out.stat().st_size > 0
+    src.write_bytes(b"device flag check " * 400)
+    comp, back = tmp_path / "c.snappy", tmp_path / "rt.txt"
+    assert cli.main(["-d", "-c", "-i", str(src), "-o", str(comp)]) == 0
+    assert "Using xla engine for compression" in capsys.readouterr().out
+    assert cli.main(["-d", "-i", str(comp), "-o", str(back)]) == 0
+    assert "Using xla engine for decompression" in capsys.readouterr().out
+    assert back.read_bytes() == src.read_bytes()
+
+
+def test_cli_rejects_pallas_engine(tmp_path):
+    (tmp_path / "x").write_bytes(b"x")
+    r = run_cli("--engine", "pallas", "-c", "-i", "x", cwd=tmp_path)
+    assert r.returncode == 2
+    assert "invalid choice" in r.stderr

@@ -35,13 +35,8 @@ def test_runtime_compress_corpus(corpus_dir, name):
 
 def test_runtime_roundtrip_engines():
     data = (b"engine parity test " * 3000) + random.Random(3).randbytes(10000)
-    for engine in ("oracle", "native", "xla", "pallas"):
-        # pallas runs the interpret path in CI: the 32K default block takes
-        # ~12 min interpreted, so exercise it at a small size here (the
-        # production sizes are hardware-validated, tpu_validation.json).
-        cfg = CodecConfig(
-            engine=engine, block_size=2048 if engine == "pallas" else 32768
-        )
+    for engine in ("oracle", "native", "xla"):
+        cfg = CodecConfig(engine=engine)
         stream = runtime.compress(data, cfg)
         assert runtime.decompress(stream, cfg) == data
         # cross-engine: everyone decodes everyone
@@ -106,105 +101,28 @@ def test_phase_timer_taxonomy():
         assert f"{p} time:" in human
 
 
-def test_pallas_envelope_gate_falls_back_loudly():
-    # The pallas envelope is exact (reviewer finding): in-range but
-    # unsupported block sizes must take the loud xla fallback, never reach
-    # the kernels (bs=264 hit a raw AssertionError in decode; bs=32768
-    # exceeds the un-chunked sweep matcher's VMEM budget).
-    import warnings
-
-    from pim_compression_tpu.runtime.profiling import PhaseTimer
-
-    data = b"envelope gate " * 600
-    for bs, matcher in ((264, "sorted"), (32768, "sweep")):
-        t = PhaseTimer()
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            cfg = CodecConfig(engine="pallas", block_size=bs, matcher=matcher)
-            stream = runtime.compress(data, cfg, t)
-        assert "engine_fallback" in t.notes, (bs, matcher)
-        assert runtime.decompress(stream, CodecConfig(engine="oracle")) == data
-        with pytest.raises(Exception):
-            runtime.compress(
-                data,
-                CodecConfig(
-                    engine="pallas", block_size=bs, matcher=matcher,
-                    strict_engine=True,
-                ),
-            )
-    # Formerly-fallback sizes now inside the widened envelope (pad-to-pow2
-    # sort + pow2-divisor emit chunks): run in-kernel under strict_engine
-    # and round-trip (1280 and 2688; 24576 asserted via the gap predicate —
-    # a 24 K interpret-mode sort is too slow for CI).
-    from pim_compression_tpu.runtime.api import _pallas_envelope_gap
-    from pim_compression_tpu.ops.pallas_encode import MAX_ENC_BLOCK
-
-    for bs in (1280, 2688, 24576):
-        cfg = CodecConfig(
-            engine="pallas", block_size=bs, matcher="sorted",
-            strict_engine=True,
-        )
-        assert (
-            _pallas_envelope_gap(cfg, bs, MAX_ENC_BLOCK, encode=True) is None
-        ), bs
-        if bs >= 24576:
-            continue
-        stream = runtime.compress(data, cfg)
-        assert runtime.decompress(stream, CodecConfig(engine="oracle")) == data
-        assert runtime.decompress(stream, cfg) == data
+@pytest.mark.parametrize("engine", ["pallas", "gpu", ""])
+def test_unknown_engines_rejected(engine):
+    with pytest.raises(ValueError, match="unknown engine"):
+        CodecConfig(engine=engine)
 
 
-def test_pallas_batch_trimming_policy():
-    # Small inputs dispatch pow2 lane-group counts instead of 1024-block
-    # slots; large inputs keep the 1024-per-device quantization.
+@pytest.mark.parametrize(
+    "num_blocks,mesh_devices,batch_blocks,expected",
+    [
+        (1, 1, 1024, (1, 1)),
+        (164, 1, 1024, (164, 164)),
+        (3072, 1, 1024, (3072, 1024)),
+        (3073, 1, 1024, (4096, 1024)),
+        (5, 8, 1024, (8, 8)),
+        (10, 4, 4, (12, 4)),
+    ],
+)
+def test_device_batches(num_blocks, mesh_devices, batch_blocks, expected):
+    # Batches are a multiple of the mesh size; the total pads to whole
+    # batches.
     from pim_compression_tpu.parallel import get_mesh
-    from pim_compression_tpu.runtime.api import _pallas_batches
+    from pim_compression_tpu.runtime.api import _device_batches
 
-    mesh = get_mesh(1)
-    assert _pallas_batches(164, mesh) == (256, 256)  # 32 K xml: 2 groups
-    assert _pallas_batches(1, mesh) == (128, 128)
-    assert _pallas_batches(513, mesh) == (1024, 1024)
-    assert _pallas_batches(1024, mesh) == (1024, 1024)
-    assert _pallas_batches(1025, mesh) == (2048, 2048)  # big path
-    nd = len(jax.devices())
-    if nd >= 2:
-        mesh2 = get_mesh(2)
-        # 164 blocks over 2 devices: 82/dev -> 1 group/dev.
-        assert _pallas_batches(164, mesh2) == (256, 256)
-        assert _pallas_batches(300, mesh2) == (512, 512)  # 2 groups/dev
-
-
-def test_pallas_64k_blocks_end_to_end():
-    # The format's documented max block (snappy/README.md:7) runs on the
-    # device kernels in both directions: wide emit (HBM-windowed layout
-    # planes) + wide two-plane decode. A config without the fused
-    # select-then-extend is auto-upgraded (uncapped extension cannot fit
-    # VMEM at 64K) with a visible timer note.
-    from pim_compression_tpu.runtime.profiling import PhaseTimer
-
-    data = (b"sixty-four kilobyte blocks ride the wide kernels " * 1500)[
-        : 65536 + 9000
-    ]
-    # A config that explicitly turns the fused select-extend OFF is
-    # auto-upgraded at 64K with the visible note.
-    cfg_off = CodecConfig(
-        engine="pallas", block_size=65536, matcher="sorted", rungs=(4,),
-        prev_k=2, sel_cap=0, sel_all=False, strict_engine=True,
-    )
-    t = PhaseTimer()
-    stream = runtime.compress(data, cfg_off, t)
-    assert t.notes.get("wide_select") == "sel_all sel_cap=16"
-    assert runtime.decompress(stream, CodecConfig(engine="oracle")) == data
-    # The DEFAULT config (rung-pick flagship) also upgrades at 64K: the
-    # wide emit path needs the fused select-then-extend, and sel_cap > 0
-    # auto-disables rung_pick (the knobs compose by priority -
-    # utils/config.py effective_rung_pick).
-    cfg = CodecConfig(
-        engine="pallas", block_size=65536, matcher="sorted",
-        strict_engine=True,
-    )
-    t2 = PhaseTimer()
-    stream2 = runtime.compress(data, cfg, t2)
-    assert t2.notes.get("wide_select") == "sel_all sel_cap=16"
-    assert runtime.decompress(stream2, CodecConfig(engine="oracle")) == data
-    assert runtime.decompress(stream2, cfg) == data
+    cfg = CodecConfig(batch_blocks=batch_blocks)
+    assert _device_batches(num_blocks, cfg, get_mesh(mesh_devices)) == expected

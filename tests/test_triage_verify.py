@@ -20,12 +20,7 @@ BS = 1024
 
 
 def _cfg(**kw):
-    base = dict(
-        engine="pallas", block_size=BS, matcher="sorted", rungs=(4, 32),
-        prev_k=2, sel_cap=16, sel_all=True,
-    )
-    base.update(kw)
-    return CodecConfig(**base)
+    return CodecConfig(engine="xla", block_size=BS, **kw)
 
 
 def test_triage_mask_random_vs_text():
@@ -86,7 +81,7 @@ def test_compress_random_all_triaged_no_device_work():
 
 
 def test_compress_text_triage_is_identity():
-    text = (b"block-parallel snappy on tpu lanes " * 300)[: 6 * BS]
+    text = (b"block-parallel snappy on device lanes " * 300)[: 6 * BS]
     t = PhaseTimer()
     s_on = runtime.compress(text, _cfg(), t)
     assert "raw_blocks" not in t.notes
@@ -116,18 +111,16 @@ def test_verify_on_device_roundtrip():
 
 def test_verify_catches_decoder_disagreement(monkeypatch):
     # Force the verification decoder to produce garbage: the flag must trip.
-    from pim_compression_tpu.ops import pallas_decode
+    from pim_compression_tpu.ops import decode
     from pim_compression_tpu.utils.errors import SnappyError
 
-    real = pallas_decode.decode_blocks_pallas_sharded
+    real = decode.decode_blocks
 
-    def corrupted(comp, comp_len, out_len, mesh, **kw):
-        out, err = real(comp, comp_len, out_len, mesh, **kw)
+    def corrupted(comp, comp_len, out_len, **kw):
+        out, err = real(comp, comp_len, out_len, **kw)
         return out ^ 0xFF, err
 
-    monkeypatch.setattr(
-        pallas_decode, "decode_blocks_pallas_sharded", corrupted
-    )
+    monkeypatch.setattr(decode, "decode_blocks", corrupted)
     text = (b"corruption must be caught before assembly " * 200)[: 2 * BS]
     with pytest.raises(SnappyError):
         runtime.compress(text, _cfg(verify=True))
